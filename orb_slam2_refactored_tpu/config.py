@@ -7,8 +7,10 @@ Capability parity with the cv::FileStorage reads in the reference System ctor
 `Viewer.*`, and EuRoC `LEFT./RIGHT.{K,D,R,P,height,width}`) parse from the
 same settings files, so a reference user's YAML works unchanged.
 
-OpenCV YAML files start with a `%YAML:1.0` directive and may contain
-`!!opencv-matrix` tags; we normalize both so PyYAML can parse them.
+OpenCV writes these files as YAML 1.0 with a `%YAML:1.0` directive and
+`!!opencv-matrix` blocks. `_load_opencv_yaml` reads that subset directly
+(flat `key: scalar` lines, comments, and matrix blocks with rows/cols/dt/data),
+with YAML 1.1 scalar typing, so no YAML library is needed.
 """
 
 from __future__ import annotations
@@ -18,16 +20,70 @@ import re
 from typing import Any, Dict, Optional
 
 import numpy as np
-import yaml
+
+_INT = re.compile(r"[-+]?[0-9]+$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _scalar(text: str):
+    """One plain or quoted YAML scalar, typed as YAML 1.1 types it."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t in ("", "~", "null", "Null", "NULL"):
+        return None
+    if t in ("true", "True", "TRUE"):
+        return True
+    if t in ("false", "False", "FALSE"):
+        return False
+    if _INT.match(t):
+        return int(t)
+    if _FLOAT.match(t) and t not in (".", "+.", "-."):
+        return float(t.replace("_", ""))
+    return t
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a `#` comment (one at the line start or after whitespace)."""
+    m = re.search(r"(^|\s)#", line)
+    return line[: m.start()] if m else line
 
 
 def _load_opencv_yaml(path: str) -> Dict[str, Any]:
     with open(path, "r") as f:
-        text = f.read()
-    # Strip the OpenCV YAML directive and map !!opencv-matrix to plain maps.
-    text = re.sub(r"^%YAML[:\s][^\n]*\n", "", text)
-    text = text.replace("!!opencv-matrix", "")
-    return yaml.safe_load(text) or {}
+        lines = [_strip_comment(l).rstrip() for l in f]
+    out: Dict[str, Any] = {}
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        i += 1
+        if not line.strip() or line.startswith("%") or line.strip() == "---":
+            continue
+        key, _, value = line.partition(":")
+        key, value = key.strip(), value.strip()
+        if value.startswith("!!opencv-matrix") or value == "":
+            # indented block of `field: value` lines; `data` may span lines
+            node: Dict[str, Any] = {}
+            while i < len(lines) and (not lines[i].strip()
+                                      or lines[i][0] in " \t"):
+                field, _, v = lines[i].strip().partition(":")
+                i += 1
+                if not field:
+                    continue
+                v = v.strip()
+                if v.startswith("["):
+                    while "]" not in v and i < len(lines):
+                        v += " " + lines[i].strip()
+                        i += 1
+                    items = v.strip("[] ").split(",")
+                    node[field.strip()] = [_scalar(x) for x in items
+                                           if x.strip()]
+                else:
+                    node[field.strip()] = _scalar(v)
+            out[key] = node if node else None
+        else:
+            out[key] = _scalar(value)
+    return out
 
 
 def _as_matrix(node) -> np.ndarray:

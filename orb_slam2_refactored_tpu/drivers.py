@@ -150,7 +150,7 @@ def _run_live_rgbd(args):
     Capability analog of the reference's ROS node
     (`/root/reference/Examples/ROS/ORB_SLAM2/src/ros_rgbd.cc`: an
     ApproximateTime-synchronized rgb+depth subscription whose callback
-    feeds TrackRGBD). A zero-egress TPU host has no ROS transport, so the
+    feeds TrackRGBD). A host without ROS has no topic transport, so the
     "topic" is a directory: any producer (camera daemon, network relay)
     drops `rgb/<ts>.png` + `depth/<ts>.png` pairs and the driver tracks
     each pair once both sides exist — same synchronization contract,

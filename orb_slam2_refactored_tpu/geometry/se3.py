@@ -1,7 +1,7 @@
 """SE(3) rigid transforms as quaternion + translation arrays.
 
 Capability analog of the reference's `CameraPose` (R,t as cv::Matx,
-`/root/reference/include/CameraPose.h:29-89`), redesigned for TPU: poses are
+`/root/reference/include/CameraPose.h:29-89`), redesigned for the device: poses are
 flat float32 arrays `[qw,qx,qy,qz,tx,ty,tz]` so whole keyframe sets batch as
 `[N,7]` tensors, every op broadcasts over leading axes, and tangent-space
 exp/log provide the Levenberg-Marquardt update rule that the reference gets

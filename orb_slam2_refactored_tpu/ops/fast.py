@@ -3,7 +3,7 @@
 Capability analog of the reference's grid-tiled `cv::FAST` usage
 (`/root/reference/src/ORBextractor.cc:489-540`): segment test on the 16-pixel
 Bresenham circle (radius 3) requiring >=9 contiguous brighter/darker pixels.
-TPU-first: instead of per-cell scalar loops, the whole level is evaluated as
+Accelerator-first: instead of per-cell scalar loops, the whole level is evaluated as
 16 shifted image planes; the contiguous-arc test is a log-time AND-cascade
 over circularly concatenated masks, and the per-cell two-threshold fallback
 (`:519-539`) becomes a max-pooled cell mask.
@@ -64,7 +64,7 @@ def fast_strength_map(img):
     (`score(th) = strength - th`), so the two-threshold detector pays for
     the 16 shifted planes once.
 
-    Computes in the INPUT dtype: a bf16 pyramid level halves the HBM bytes
+    Computes in the INPUT dtype: a bf16 pyramid level halves the bytes
     of the 16 shifted planes (the stage's dominant traffic), and the
     arithmetic here is exact for integer-valued bf16 images (differences
     of intensities <= 255 are representable; the cascades are pure

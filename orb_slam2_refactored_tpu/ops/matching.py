@@ -8,7 +8,7 @@ Capability analogs (semantics, not structure) of
 - `search_last_frame`        <- SearchByProjection frame<-lastFrame (:1279)
 - `rotation_consistency`     <- CheckOrientation 30-bin histogram (:249-309)
 The reference's BoW-node candidate gating is an *acceleration* of full
-descriptor NN on CPU; on TPU the full masked matrix is already the fast path,
+descriptor NN on CPU; on the device the full masked matrix is the fast path,
 so BoW gating is unnecessary for speed (it is kept for place recognition only).
 """
 
@@ -105,7 +105,7 @@ def search_by_projection(
     candidate_cap: when the point capacity exceeds it, the [P,N] candidate
     matrices (pixel window, level gate, Hamming) are built only for the
     top-`cap` frustum-passing points — the per-point gates are O(P) and
-    cheap, the pairwise matrices dominate HBM traffic. Points beyond the
+    cheap, the pairwise matrices dominate memory traffic. Points beyond the
     cap in one frame are dropped for that frame only (maps with >8k
     concurrently visible landmarks should track through the covisibility
     window, `TrackerConfig.local_map_window`). 0 disables the compaction.

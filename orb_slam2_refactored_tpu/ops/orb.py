@@ -1,4 +1,4 @@
-"""Multi-scale ORB feature extraction, fully vectorized for TPU.
+"""Multi-scale ORB feature extraction, fully vectorized for the device.
 
 Capability analog of the reference `ORBextractor`
 (`/root/reference/src/ORBextractor.cc:743-820`): 8-level image pyramid,
@@ -7,7 +7,7 @@ grid-tiled two-threshold FAST, spatially-spread per-level feature budgets
 `:74-101`), Gaussian blur + rotated-BRIEF 256-bit descriptors
 (`ComputeOrbDescriptor`, `:103-140`), packed as uint32[8] bit tensors.
 
-TPU-first design choices (not a translation):
+Design choices for an accelerator (not a translation):
 - Whole-level FAST as shifted-plane arithmetic (see `ops/fast.py`) instead of
   per-cell scalar loops; the two-threshold fallback is a max-pooled cell mask.
 - Quad-tree suppression (`:542-693`) is replaced by rank-in-cell boosted
@@ -155,20 +155,14 @@ def select_spread_topk(score, k: int, cell: int = 32, rank_rounds: int = 4):
     """
     h, w = score.shape
     # NOTE on small levels: with few 32px cells the rank loop below runs
-    # dozens of SEQUENTIAL tiny argmaxes (level 7 at 80x60: ~37 rounds,
-    # ~0.2 ms of dispatch latency). An adaptive cell (halve until C >= k)
-    # was built and measured: it bounds the rounds at ~6, but the stronger
-    # spread enforcement on small levels reshuffles the scale-invariant
-    # features loops match on, and the 100k-vocab loop circuit's corrected
-    # ATE regressed 0.048 -> 0.090 m — reverted: 0.16 ms is not worth a
-    # measured loop-quality regression on a link-bound engine.
-    # A CROSS-LEVEL BATCHED form (concatenate all levels' tiles, run the
-    # rank rounds once — bit-identical selection) was also built and
-    # measured in round 5: 3.05-3.55 ms extract vs 2.86 ms per-level, both
-    # flat-batched and grouped-by-round-count — the small levels' many
-    # rounds drag the big levels' tiles through extra memory passes, and
-    # XLA already pipelines the per-level tiny ops inside the one compiled
-    # program. Reverted; the sequential form IS the fast one.
+    # dozens of SEQUENTIAL tiny argmaxes (level 7 at 80x60: ~37 rounds).
+    # An adaptive cell (halve until C >= k) bounds the rounds at ~6, but the
+    # stronger spread enforcement on small levels reshuffles the
+    # scale-invariant features loops match on, and the 100k-vocab loop
+    # circuit's corrected ATE regressed 0.048 -> 0.090 m, so it was
+    # reverted. A CROSS-LEVEL BATCHED form (concatenate all levels' tiles,
+    # run the rank rounds once — bit-identical selection) was slower on the
+    # former accelerator; neither is measured on the H100.
     ph, pw = (-h) % cell, (-w) % cell
     sp = jnp.pad(score, ((0, ph), (0, pw)))
     hc, wc = (h + ph) // cell, (w + pw) // cell
@@ -177,7 +171,7 @@ def select_spread_topk(score, k: int, cell: int = 32, rank_rounds: int = 4):
     # rank within cell by iterated argmax: round r extracts each cell's
     # r-th best corner. The global top-k then runs over the [rounds*C]
     # candidate list instead of the full [H*W] image (a ~250x smaller
-    # top_k — the old image-wide scatter + top_k was ~1.4ms/frame). The
+    # top_k than an image-wide scatter + top_k). The
     # candidate pool must survive sparse occupancy: texture often covers
     # only ~25% of cells (e.g. a close-up wall), so rounds*C >= 6k keeps
     # pool_occupied = rounds * C/4 >= 1.5k. At VGA this stays ~5 rounds;
@@ -219,11 +213,11 @@ def select_spread_topk(score, k: int, cell: int = 32, rank_rounds: int = 4):
 def _gather_patches(img, ys, xs):
     """[K,31,31] patches centered at integer coords (assumed >= margin).
 
-    Row-gather then column-slice: `img[ys+dy]` pulls whole rows (fast,
-    contiguous lanes on TPU) and the vmapped dynamic_slice trims columns.
-    Measured 8x faster than per-keypoint 2D dynamic_slice and 22x faster
-    than a flat-index gather on v5e (XLA fuses the row gather into the
-    slice, so the [K,31,W] intermediate never materializes)."""
+    Row-gather then column-slice: `img[ys+dy]` pulls whole contiguous rows
+    and the vmapped dynamic_slice trims columns (XLA fuses the row gather
+    into the slice, so the [K,31,W] intermediate need not materialize).
+    Against a per-keypoint 2-D dynamic_slice or a flat-index gather, not
+    measured on the H100."""
     d = jnp.arange(-HALF_PATCH, HALF_PATCH + 1)
     rows = img[ys[:, None] + d[None, :]]  # [K,31,W]
     return jax.vmap(
@@ -263,14 +257,14 @@ def diff_tables(pattern: str) -> Tuple[np.ndarray, int]:
     For angle bin b, column i holds +1 at the rotated pattern point A and -1
     at point B (flattened SxS window coords), so
     `sign(window_flat @ D[b]) == (sample_A < sample_B)` — the BRIEF test as
-    ONE MXU contraction instead of 512 scalar gathers per keypoint. The
+    ONE matmul contraction instead of 512 scalar gathers per keypoint. The
     rotation is quantized to B bins (the continuous path rounds rotated
     offsets to integers anyway, the same 0.5px scale as a 5.6 deg bin at
     radius 13).
 
     The window is trimmed to the pattern's exact rotated support S=2*sup+1
     (27x27 for the radius-13 fresh pattern): the [K,S^2,256] table gather
-    dominates the descriptor stage's HBM bytes, so dropping the 31x31
+    dominates the descriptor stage's memory traffic, so dropping the 31x31
     window's guaranteed-zero border rows is a free ~25% cut."""
     pat = get_pattern(pattern)
     B = N_ANGLE_BINS
@@ -297,21 +291,23 @@ def diff_tables(pattern: str) -> Tuple[np.ndarray, int]:
 def _pack_bits(bits):
     """bool[K,256] -> uint32[K,8] (exact f32 byte dot, then shifts)."""
     byte_w = jnp.asarray([1, 2, 4, 8, 16, 32, 64, 128], jnp.float32)
+    # default precision: 0/1 bits times powers of two summed to <= 255 is
+    # exact in TF32 as in f32
     bytes_f = bits.reshape(-1, 8, 4, 8).astype(jnp.float32) @ byte_w  # [K,8,4]
     b = bytes_f.astype(jnp.uint32)
     return b[:, :, 0] | (b[:, :, 1] << 8) | (b[:, :, 2] << 16) | (b[:, :, 3] << 24)
 
 
 def brief_descriptors_mxu(blurred, ys, xs, angles, pattern: str = "fresh"):
-    """Rotated-BRIEF via angle-binned difference matrices on the MXU.
+    """Rotated-BRIEF via angle-binned difference matrices, one bf16 matmul.
 
-    The 512-sample flat gather costs ~3.3ms/frame across 8 levels on v5e;
-    this formulation gathers each keypoint's 31x31 blurred window (cheap
-    row-gather) and contracts it with a per-bin +-1 matrix — measured
-    ~0.8ms/frame, HBM-bandwidth-bound on the [K,961,256] table rows.
-    Descriptors differ from `brief_descriptors` only by the 5.6-deg angle
-    quantization (~11/256 bits on noise images, far less on blurred real
-    frames); all matching is internally consistent either way."""
+    Instead of the 512-sample flat gather (`brief_descriptors`), this
+    gathers each keypoint's 31x31 blurred window (cheap row-gather) and
+    contracts it with a per-bin +-1 matrix; its cost is the [K,961,256]
+    table rows it reads (not measured on the H100). Descriptors differ from
+    `brief_descriptors` only by the 5.6-deg angle quantization (~11/256
+    bits on noise images, far less on blurred real frames); all matching is
+    internally consistent either way."""
     win = _gather_patches(blurred, ys, xs).reshape(-1, 961)
     return _brief_from_windows(win, angles, pattern)
 
@@ -375,34 +371,16 @@ def angles_and_descriptors_mxu_raw(lvl, ys, xs, pattern: str = "fresh"):
     # blur in f32 regardless of the pyramid dtype (level 0 is exact in
     # bf16, so the blurred window — and the descriptor bits — stay
     # bit-identical to the f32 pipeline there)
+    hi = jax.lax.Precision.HIGHEST
+    # HIGHEST: in TF32 the window moves 0.1 gray and flips BRIEF bits (H100)
     win = jnp.einsum("ac,kab,bd->kcd", B, raw.astype(jnp.float32),
-                     B).reshape(-1, 961)
+                     B, precision=hi).reshape(-1, 961)
     _, xm, ym = circular_patch_masks()
     mom = jnp.asarray(
         np.stack([xm.reshape(-1), ym.reshape(-1)], axis=1)
     )  # f32[961,2]
-    m = win @ mom
-    ang = jnp.arctan2(m[:, 1], m[:, 0])
-    return ang, _brief_from_windows(win, ang, pattern)
-
-
-def angles_and_descriptors_mxu(blurred, ys, xs, pattern: str = "fresh"):
-    """IC-angle + rotated-BRIEF from ONE 31x31 blurred-window gather.
-
-    The intensity-centroid moments become a [K,961]@[961,2] matmul over the
-    same gathered windows the BRIEF contraction reads, so the per-level
-    patch gather happens once instead of twice (the raw-image gather for
-    IC_Angle was ~0.7ms/frame of the extract step). Deviation from the
-    reference (`IC_Angle` reads the UNBLURRED image, src/ORBextractor.cc:74):
-    the centroid of the sigma=2-blurred patch differs by well under the
-    5.6-deg bin quantization the MXU BRIEF already applies, and both the
-    angle and the descriptor are self-consistent across all matcher uses."""
-    win = _gather_patches(blurred, ys, xs).reshape(-1, 961)
-    _, xm, ym = circular_patch_masks()
-    mom = jnp.asarray(
-        np.stack([xm.reshape(-1), ym.reshape(-1)], axis=1)
-    )  # f32[961,2]
-    m = win @ mom  # [K,2] = (m10, m01)
+    # HIGHEST: TF32 moments move the angle 0.03 deg, past the 0.01 deg parity
+    m = jnp.dot(win, mom, precision=hi)
     ang = jnp.arctan2(m[:, 1], m[:, 0])
     return ang, _brief_from_windows(win, ang, pattern)
 
@@ -412,11 +390,9 @@ def brief_descriptors(blurred, ys, xs, angles, pattern: str = "fresh"):
 
     Samples the blurred level image at the rotated pattern offsets
     (steered BRIEF, `ComputeOrbDescriptor` semantics `src/ORBextractor.cc:103-140`).
-    The 512 samples gather DIRECTLY from the flat image: a per-row
-    `take_along_axis` out of pre-gathered patches lowers to a pathological
-    per-row gather on TPU (measured 5.7ms vs 0.75ms for the flat gather at
-    K=1000). Bit packing rides an exact f32 byte dot instead of a u32
-    multiply-reduce (1.0ms -> ~0.1ms)."""
+    The 512 samples gather DIRECTLY from the flat image rather than with a
+    per-row `take_along_axis` out of pre-gathered patches. Bit packing rides
+    an exact f32 byte dot instead of a u32 multiply-reduce."""
     pat = jnp.asarray(get_pattern(pattern), jnp.float32)  # [256,2,2] (x,y)
     cos_t = jnp.cos(angles)[:, None, None]  # [K,1,1]
     sin_t = jnp.sin(angles)[:, None, None]
@@ -488,17 +464,16 @@ class OrbExtractor:
     def _extract_impl_pyr(self, img) -> Tuple[OrbFeatures, List]:
         """Like `_extract_impl` but also returns the f32 pyramid levels, so
         callers that need them again (stereo SAD refinement) don't rebuild
-        the resize chain (~1.8 ms/pair at VGA)."""
+        the resize chain."""
         img = image_ops.to_gray(img)
-        # The pyramid stays f32. A bf16 pyramid was built and measured
-        # (extract 2.2 -> 2.0 ms: the resize chain + FAST planes halve
-        # their HBM bytes, level 0 stays bit-exact since intensities are
-        # integers), but the ~0.4-gray rounding of INTERPOLATED upper
+        # The pyramid stays f32. A bf16 pyramid halves the resize chain's
+        # and FAST planes' bytes (level 0 stays bit-exact since intensities
+        # are integers), but the ~0.4-gray rounding of INTERPOLATED upper
         # levels perturbs keypoint selection enough to cost stereo
-        # association accuracy (stereo-odometry ATE 0.044 -> 0.059 m,
-        # past its gate) — 0.2 ms is not worth a measurable accuracy
-        # regression. fast.py still computes in the input dtype, so the
-        # bf16 option remains one cast away for mono/RGB-D-only deploys.
+        # association accuracy (stereo-odometry ATE 0.044 -> 0.059 m, past
+        # its gate); its speed is not measured on the H100. fast.py still
+        # computes in the input dtype, so the bf16 option remains one cast
+        # away for mono/RGB-D-only deploys.
         levels = image_ops.build_pyramid(img, self.n_levels, self.scale_factor)
         outs = []
         for l, lvl in enumerate(levels):

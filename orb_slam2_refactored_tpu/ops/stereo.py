@@ -3,7 +3,7 @@
 Capability analog of `ORBmatcher::ComputeStereoMatches`
 (`/root/reference/src/ORBmatcher.cc:72-247`): row-banded candidate search in
 the rectified pair, best-Hamming association, and a median-distance outlier
-filter. TPU-first: the per-row candidate lists (`:82-99`) become a dense
+filter. Accelerator-first: the per-row candidate lists (`:82-99`) become a dense
 [N,N] mask (row band x disparity window x level window); the association is
 one masked Hamming argmin; the 11x11 SAD sub-pixel refinement (`:163-228`)
 is a vmapped patch-gather pass (`refine_subpixel`) — it cuts stereo odometry
@@ -129,9 +129,8 @@ def refine_subpixel_pyramid(
 
     ONE pass over the keypoints: the levels stack into a zero-padded
     [L, H0, W0] volume and each keypoint patch-gathers from ITS OWN level
-    plane. The previous form ran a full all-keypoint SAD pass PER LEVEL
-    (8x the patch work, 23.5 ms of the stereo step's 30 ms device time at
-    VGA); this one is level-count-independent."""
+    plane. A full all-keypoint SAD pass PER LEVEL would do 8x the patch
+    work; this one is level-count-independent."""
     N = u_right.shape[0]
     L = len(levels_l)
     H0, W0 = levels_l[0].shape
@@ -139,9 +138,8 @@ def refine_subpixel_pyramid(
     S = P + 2 * R_SAD
 
     # vertically flattened pyramid [sum_H, W0]: a per-keypoint read becomes
-    # a ROW GATHER + vmapped column slice — the lowering `ops/orb.py`'s
-    # `_gather_patches` measured 8x faster than per-keypoint 2-D
-    # dynamic_slice on TPU
+    # a ROW GATHER + vmapped column slice, the lowering of `ops/orb.py`'s
+    # `_gather_patches`
     offs = np.cumsum([0] + [lv.shape[0] for lv in levels_l])[:-1]
 
     def flat(levels):

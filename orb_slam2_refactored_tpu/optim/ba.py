@@ -7,7 +7,7 @@ on top of `BlockSolver` Schur marginalization
 (`Thirdparty/g2o/g2o/core/block_solver.hpp:51-87`) and LM with adaptive
 lambda (`core/optimization_algorithm_levenberg.cpp:47-151`).
 
-TPU-first (not a port of g2o's sparse architecture):
+Accelerator-first (not a port of g2o's sparse architecture):
 - Observations live in the map's natural dense layout `[K, N]` (keyframe x
   feature slot) with -1 padding: residuals and both Jacobian blocks
   (pose [3,6], point [3,3]) for every observation come from ONE vmapped
@@ -167,8 +167,8 @@ def _psum(x, axis_name):
 
 
 def _inv3x3(A):
-    """Closed-form batched 3x3 inverse (adjugate / det) — far cheaper on TPU
-    than the general LU path of jnp.linalg.inv for [P,3,3] stacks."""
+    """Closed-form batched 3x3 inverse (adjugate / det) — far cheaper on an
+    accelerator than the general LU path of jnp.linalg.inv for [P,3,3] stacks."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -212,7 +212,7 @@ def ba_solve(
 ) -> BAResult:
     """When `axis_name` is given, the problem's keyframe axis is assumed
     sharded under `shard_map(mesh, axis_name)` with point arrays replicated:
-    all point-space reductions and CG scalars become collectives over ICI —
+    all point-space reductions and CG scalars become collectives —
     the keyframe-sharded distributed global BA of BASELINE.json configs[4].
 
     With `axis_size > 1` the POINT-space stages shard too: every [P,*]
@@ -220,15 +220,15 @@ def ba_solve(
     P/n rows + `all_gather` — IDENTICAL ring communication volume to the
     plain psum, but the replicated point-space FLOPs (Hll damping, 3x3
     inversions, G products, back-substitution) divide by the mesh size.
-    Without this the point work is an Amdahl term that caps 2-host
-    efficiency (~54% measured, benchmarks/ba_scaling.py); with it the
-    per-shard compute genuinely shrinks ~1/n.
+    Without this the point work is an Amdahl term that caps multi-device
+    efficiency; with it the per-shard compute shrinks ~1/n (four-card
+    scaling is not measured on the H100 yet).
 
     `dense_schur=True` forms the reduced camera system S explicitly
     ([K*6, K*6], one batched application of S to the identity) and solves it
-    directly — the TPU-optimal shape for SMALL K (window BA, K<=32): the CG
-    path's 10-50 sequential tiny dispatches become one MXU-friendly batched
-    matmul + one dense solve. Large-K / sharded problems keep matrix-free CG
+    directly — the shape for SMALL K (window BA, K<=32): the CG path's
+    10-50 sequential tiny dispatches become one batched matmul + one dense
+    solve. Large-K / sharded problems keep matrix-free CG
     (S materialization grows as K^2 and the basis batch as K*P)."""
     with jax.default_matmul_precision("highest"):
         return _ba_solve_f32(p, cam, iters, cg_iters, use_huber, chi2_gate,
@@ -285,7 +285,7 @@ def _ba_solve_f32(p, cam, iters, cg_iters, use_huber, chi2_gate, axis_name,
         Hll_obs = jnp.einsum("knci,kncj->knij", JlW, Jl)      # [K,N,3,3]
         g_l_obs = jnp.einsum("knci,knc->kni", JlW, r)         # [K,N,3]
         flat_pt = pt_idx.reshape(-1)
-        # ONE fused [P,12] scatter for Hll (9) + g_l (3): TPU scatter cost is
+        # ONE fused [P,12] scatter for Hll (9) + g_l (3): scatter cost is
         # per-pass, so packing the point-space accumulators halves it
         packed = jnp.concatenate(
             [Hll_obs.reshape(-1, 9), g_l_obs.reshape(-1, 3)], axis=-1
@@ -363,17 +363,17 @@ def _ba_solve_f32(p, cam, iters, cg_iters, use_huber, chi2_gate, axis_name,
             # form S DIRECTLY from per-point camera-block sums: for point j
             # with G_j and per-camera W-sums T_j[k] = sum_{n:pt=j} W_obs,
             # S = blockdiag(Hpp_d) - sum_j T_j G_j T_j^T. The final
-            # contraction is ONE [D, P*3] x [P*3, D] matmul (MXU work),
-            # replacing the earlier basis trick (vmap of S_mv over the K*6
-            # identity), whose 6K scatter/gather chains dominated the window
-            # BA's 45-80 ms/KF device time. Fixed frames get zeroed
-            # rows/cols + identity diagonal (their dp solves to rhs=0).
+            # contraction is ONE [D, P*3] x [P*3, D] matmul, replacing the
+            # earlier basis trick (vmap of S_mv over the K*6 identity), whose
+            # 6K scatter/gather chains dominated the window BA's time. Fixed
+            # frames get zeroed rows/cols + identity diagonal (their dp
+            # solves to rhs=0).
             D = K * 6
             kidx = jnp.broadcast_to(jnp.arange(K)[:, None], (K, N)).reshape(-1)
             w_upd = jnp.where(obs_ok0.reshape(-1, 1),
                               W_obs.reshape(-1, 18), 0.0)
-            # flattened [P*K, 18] scatter target: measurably ~2.5x faster on
-            # TPU than the equivalent [P, K, 6, 3] 2-D scatter
+            # flattened [P*K, 18] scatter target: one 1-D scatter instead of
+            # the equivalent [P, K, 6, 3] 2-D scatter
             T = _psum(
                 jnp.zeros((P * K, 18)).at[flat_pt * K + kidx].add(w_upd),
                 axis_name,

@@ -6,7 +6,7 @@ Capability analog of `Optimizer::OptimizeEssentialGraph`
 spanning-tree edges, strong-covisibility edges with weight >= 100), fixed
 loop keyframe as gauge, 20 LM iterations.
 
-TPU-first: no g2o graph; edges are index arrays [E] with Sim3 measurements
+Accelerator-first: no g2o graph; edges are index arrays [E] with Sim3 measurements
 [E,8]. Residuals r_e = log(M_e * S_j * S_i^-1) and both 7x7 Jacobian blocks
 come from one vmapped jacfwd; the normal equations solve runs matrix-free
 preconditioned CG over the [K,7] tangent space (scatter-add along edge

@@ -5,7 +5,7 @@ Capability analog of `Optimizer::PoseOptimization`
 Huber robust kernel with delta = sqrt(5.991) mono / sqrt(7.815) stereo, chi2
 outlier gates per round with re-inclusion, dense 6x6 normal equations.
 
-TPU-first: the g2o graph (unary `EdgeSE3ProjectXYZOnlyPose` edges + dense
+Accelerator-first: the g2o graph (unary `EdgeSE3ProjectXYZOnlyPose` edges + dense
 solver) becomes a closed-form masked reduction — residual/Jacobian for every
 observation at once via vmap'd jacfwd on the tangent retraction, one 6x6
 solve per iteration inside `lax.fori_loop`, outliers handled as zero weights

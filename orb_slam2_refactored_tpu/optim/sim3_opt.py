@@ -7,7 +7,7 @@ paired reprojection residuals — each matched landmark contributes an edge in
 BOTH images (`EdgeSim3ProjectXYZ` + `EdgeInverseSim3ProjectXYZ`), with a
 Huber kernel and a chi2=10 outlier gate between rounds (`:1040-1070`).
 
-TPU-first: the g2o graph becomes one masked vmapped residual tensor; the
+Accelerator-first: the g2o graph becomes one masked vmapped residual tensor; the
 7-DoF tangent (6 se3 + log-scale; scale row projected out when fix_scale)
 solves densely per LM iteration inside `lax.scan` — same shape as
 `optim/pose_opt.py`.

@@ -1,13 +1,13 @@
 """Multi-host wiring for the sharded global bundle adjustment.
 
-The reference has no distribution at all (SURVEY.md §2.3); the TPU-native
+The reference has no distribution at all (SURVEY.md §2.3); the multi-host
 scaling story is: one JAX process per host, `jax.distributed.initialize`
-over the coordinator, a 1-D keyframe mesh spanning every chip in the slice,
-and `sharded_ba_solve` unchanged — its psums ride ICI within a host and DCN
-across hosts. Communication per CG iteration is a single [P,3] psum + two
-scalar psums (~200KB at P=16k), against ~10ms of per-shard solve compute, so
-DCN-connected hosts stay compute-bound (the >=70%-at-2-hosts north star of
-BASELINE.json).
+over the coordinator, a 1-D keyframe mesh spanning every device of every
+host, and `sharded_ba_solve` unchanged — its psums ride NVLink within a host
+and the network across hosts. Communication per CG iteration is a single
+[P,3] psum + two scalar psums (~200KB at P=16k); whether hosts stay
+compute-bound (the >=70%-at-2-hosts north star of BASELINE.json) is not
+measured on the H100.
 
 `run_multiprocess_ba` is the per-process entry used by the 2-process CPU
 smoke test (tests/test_distributed.py): it initializes the process group,

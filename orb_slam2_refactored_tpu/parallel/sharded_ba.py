@@ -2,14 +2,15 @@
 
 The distributed analog of the reference's Global BA thread
 (`/root/reference/src/LoopClosing.cc:349-499` + `src/Optimizer.cc:204-343`),
-redesigned for TPU slices (BASELINE.json configs[4]): the keyframe axis of
+redesigned for a multi-device mesh (BASELINE.json configs[4]): the keyframe axis of
 the BA problem shards across a 1-D `jax.sharding.Mesh`; landmark arrays
 replicate. Inside `shard_map`, every point-space reduction (Hll/g_l
-assembly, `U^T v` in the Schur CG) and every CG scalar is a `psum` over ICI;
+assembly, `U^T v` in the Schur CG) and every CG scalar is a `psum` over the mesh;
 pose blocks, Jacobians and the block-Jacobi preconditioner stay shard-local.
 
 Communication per CG iteration: one `psum` of a `[P,3]` array + two scalar
-psums — the reduced camera system exchange, riding ICI, matching the
+psums — the reduced camera system exchange, over NVLink between the cards
+of one host, matching the
 SURVEY.md §2.3 "distributed comm backend" design row.
 """
 

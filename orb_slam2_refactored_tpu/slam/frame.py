@@ -2,14 +2,14 @@
 
 Capability analog of the reference `Frame` (`/root/reference/src/Frame.cc:161-196`,
 `include/Frame.h`): keypoints (raw + undistorted), packed ORB descriptors,
-per-keypoint stereo u_right / depth, and map-point associations. TPU-first
-redesign: every field is a statically-shaped array padded to `capacity`
+per-keypoint stereo u_right / depth, and map-point associations. Redesigned
+for an accelerator: every field is a statically-shaped array padded to `capacity`
 features with a validity mask — no per-frame dynamic allocation, so one
 compiled tracking program serves every frame.
 
 The reference's 64x48 bucket grid (`src/Frame.cc:64-145`) exists to make
-radius queries O(1) on CPU; on TPU the dense masked candidate matrix IS the
-fast path (VPU-vectorized Hamming over all pairs), so the grid is not
+radius queries O(1) on CPU; on the device the dense masked candidate matrix
+IS the fast path (vectorized Hamming over all pairs), so the grid is not
 replicated — `GetFeaturesInArea` semantics are a masked distance test.
 """
 

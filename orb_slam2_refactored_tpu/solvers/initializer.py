@@ -9,7 +9,7 @@ select by RH = SH/(SH+SF) > 0.40 (`:113-119`), then recover (R,t) + structure
 :799). Scoring thresholds match the reference (`:306-469`): sigma=1.0,
 th_H=5.991, th_F=3.841, score cap th_score=5.991.
 
-TPU-first: the reference runs 200 RANSAC iterations in two threads
+Accelerator-first: the reference runs 200 RANSAC iterations in two threads
 (`:105-110`); here BOTH models' 200 hypotheses evaluate as one vmapped batch
 — every 8-point solve is an independent tiny SVD, every score a masked
 reduction over all correspondences.

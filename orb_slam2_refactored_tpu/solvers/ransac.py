@@ -7,7 +7,7 @@ Capability analogs:
   gating at 9.21*sigma^2 (`:245-246`). Also serves stereo/RGB-D
   relocalization (3D map point <-> 3D frame point with s=1).
 - `pnp_ransac`   <- `PnPsolver` (`src/PnPsolver.cc:165-258,375-568`): the
-  EPnP+RANSAC relocalization solver. The TPU realization evaluates a mixed
+  EPnP+RANSAC relocalization solver. This realization evaluates a mixed
   population of DLT-resection and plane-homography hypotheses in one vmapped
   batch (planar-safe — see `_planar_resection`), replacing the round-robin
   `iterate(5)` scheduling (`src/Tracking.cc:349-441`) with one batch.
@@ -171,7 +171,7 @@ def _planar_resection(X, xn, w=None):
     This is the planar-safe arm the reference gets from EPnP
     (`/root/reference/src/PnPsolver.cc:375-568`): a pure DLT resection has a
     2-D nullspace on coplanar points and returns garbage, which is exactly
-    the one-wall mono relocalization failure mode (VERDICT r4 missing #4).
+    the one-wall mono relocalization failure mode.
     `w`: optional per-point weights for non-minimal refinement."""
     n_pts = X.shape[0]
     ww = jnp.ones((n_pts,)) if w is None else w
@@ -227,7 +227,7 @@ def pnp_ransac(
     `/root/reference/src/PnPsolver.cc:165-258,375-568`), whose role there is
     exactly a degeneracy-free resection inside RANSAC.
 
-    TPU-first realization: instead of EPnP's data-dependent beta-case
+    Batched realization: instead of EPnP's data-dependent beta-case
     switch, TWO closed-form hypothesis families evaluate as one vmapped
     batch — n_iters/2 DLT resections (exact for general 3D structure) and
     n_iters/2 plane-homography decompositions (exact for coplanar

@@ -2,7 +2,7 @@
 
 Capability analog of the reference's AR demo
 (`/root/reference/Examples/ROS/ORB_SLAM2/src/AR/ViewerAR.cc`, 642 LoC — the
-last reference surface without an analog here). A TPU host has no OpenGL/
+last reference surface without an analog here). A headless host has no OpenGL/
 Pangolin, so the GL loop becomes a renderer that draws the same content
 into numpy images: tracked keypoints (`DrawTrackedPoints`, :378), a
 dominant scene plane detected by RANSAC over well-observed map points

@@ -2,7 +2,7 @@
 
 Runtime counterpart of the reference's Pangolin `Viewer` thread
 (`/root/reference/src/Viewer.cc:62-179` — a loop that redraws the MapDrawer
-+ FrameDrawer at a fixed rate while tracking runs). A TPU host has no GUI;
++ FrameDrawer at a fixed rate while tracking runs). A headless host has no GUI;
 the loop renders the same content (map points, keyframes, covisibility,
 trajectory + the latest frame overlay) to PNG files at a fixed rate, so an
 operator tails the directory (or serves it) the way the reference user

@@ -1,6 +1,6 @@
 """AR demo + live-source driver: analogs of the reference's ROS surface
 (`Examples/ROS/ORB_SLAM2/src/{AR/ViewerAR.cc, ros_rgbd.cc}`) — the last
-reference components without counterparts here (VERDICT r3 missing #5).
+reference components without counterparts here.
 
 - `viz/ar.py`: RANSAC plane detection over well-observed map points, a
   virtual cube anchored to that plane, rendered through the LIVE tracked

@@ -143,7 +143,7 @@ class TestBatchIngestEquivalence:
         _check(t, gt, ref_rmse, ref_kfs, tol=0.025, rel_tol=0.012)
 
     def test_chain_step_matches_per_frame(self, frames_gt):
-        """k=4 chained step (`_stepk_impl`, VERDICT r4 #9): one dispatch +
+        """k=4 chained step (`_stepk_impl`): one dispatch +
         one stacked 4-row pack fetch per quad must be tracking-equivalent
         (keyframe decisions lag up to 3 extra frames)."""
         frames, gt = frames_gt

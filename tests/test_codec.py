@@ -1,9 +1,9 @@
 """Image wire codec (ops/codec.py): round-trip correctness + tracking
 quality parity with the raw wire format.
 
-The DCT wire format exists for tunnel-attached deployments where the gray
-image dominates the payload; like log8 depth, its license to exist is the
-ATE gate — this test IS that gate at unit scale.
+The DCT wire format exists for deployments whose upload link is slow
+enough that the gray image's payload bounds ingest; like log8 depth, its
+license to exist is the ATE gate — this test IS that gate at unit scale.
 """
 
 import numpy as np

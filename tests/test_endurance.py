@@ -1,9 +1,9 @@
 """KITTI-length endurance: thousands of frames, 1000+ keyframe creations,
-keyframe-slot recycling, flat per-frame cost (VERDICT round-2 item 3).
+keyframe-slot recycling, flat per-frame cost.
 
 The reference tracks KITTI 00 (4541 frames) holding ~1300 keyframes via
 unbounded heap growth + redundancy culling (`/root/reference/src/Map.cc:37-68`,
-`src/LocalMapping.cc:641-701`). The TPU engine's static SoA arrays get the
+`src/LocalMapping.cc:641-701`). The engine's static SoA arrays get the
 same unbounded-sequence behavior from quarantined slot recycling
 (map_state.MapGraph.alloc_kf_slot): keyframe CREATIONS exceed the slot
 capacity while the alive set stays bounded, and nothing freezes or raises.

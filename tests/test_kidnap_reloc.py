@@ -1,4 +1,4 @@
-"""Kidnapped-camera relocalization, end-to-end (VERDICT round-2 item 5).
+"""Kidnapped-camera relocalization, end-to-end.
 
 Reference oracle: `Tracking::Relocalization`
 (`/root/reference/src/Tracking.cc:1189-1327`) — when tracking is LOST, the

@@ -1,5 +1,5 @@
 """Long-sequence map scaling: covisibility-window tracking, bounded per-frame
-cost, graceful behavior at capacity (VERDICT round-1 item 4).
+cost, graceful behavior at capacity.
 
 The reference holds ~1300 KFs over KITTI 00 by keeping tracking cost bounded
 by the local covisibility window (`/root/reference/src/Tracking.cc:55-185`)

@@ -1,4 +1,4 @@
-"""Monocular CLI drivers end-to-end (VERDICT r4 #5): synthetic TUM-mono and
+"""Monocular CLI drivers end-to-end: synthetic TUM-mono and
 EuRoC-mono exports driven through the REAL `driver_main` entry — argv ->
 loaders -> SlamSystem -> trajectory file -> scored against groundtruth —
 realizing BASELINE configs[0] (TUM mono) and [3] (EuRoC mono WITH loop

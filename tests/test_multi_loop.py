@@ -1,5 +1,5 @@
 """Multi-loop endurance circuit: TWO successive revisits, each closing its
-own loop (VERDICT round-2 item 5 synthetic fallback).
+own loop.
 
 The reference closes loops repeatedly over long sessions — every revisit
 adds a loop edge and pulls drift out (`/root/reference/src/LoopClosing.cc`,

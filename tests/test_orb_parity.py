@@ -1,9 +1,9 @@
-"""ORB parity harness vs the reference extractor semantics (VERDICT r4 #3).
+"""ORB parity harness vs the reference extractor semantics.
 
 Small numpy oracles TRANSCRIBE the reference's math — FAST-9/16 segment test
 (`/root/reference/src/ORBextractor.cc:489-540` via cv::FAST), IC_Angle
 (`:74-101` + umax setup `:704-719`), ComputeOrbDescriptor (`:103-140`),
-ComputeNumFeaturesPerScale (`:472-487`) — and the TPU kernels are asserted
+ComputeNumFeaturesPerScale (`:472-487`) — and the device kernels are asserted
 against them on shared synthetic images. This anchors TH_LOW=50/TH_HIGH=100
 and all BoW behavior to reference descriptor semantics.
 
@@ -15,8 +15,8 @@ Documented INTENTIONAL divergences (tested with explicit gates, not hidden):
 - IC_Angle reads the reference's umax rim table (cvRound(sqrt(225-v^2)) with
   a symmetry fix), which includes a few pixels with x^2+y^2 > 225; our
   circular mask excludes them. Angles agree to ~1 deg (toleranced below) —
-  well under the 5.6 deg MXU bin the descriptors quantize to anyway.
-- The production MXU descriptor path quantizes the steering angle to 64
+  well under the 5.6 deg angle bin the descriptors quantize to anyway.
+- The production matmul descriptor path quantizes the steering angle to 64
   bins; at each BIN CENTER the bits are exact vs the oracle (margin-gated
   for the bf16 contraction).
 - Blur: reference compares uint8-rounded GaussianBlur outputs; ours stays
@@ -273,7 +273,7 @@ class TestDescriptorParity:
             f"{mismatched_tight}/{total} margin-gated bit mismatches")
 
     def test_mxu_binned_path_exact_at_bin_centers(self):
-        """The MXU diff-table path equals the oracle when the steering angle
+        """The matmul diff-table path equals the oracle when the steering angle
         sits AT the bin center (margin-gated for the bf16 contraction) —
         i.e. the only divergence of the production path is the documented
         5.6-deg angle quantization itself."""

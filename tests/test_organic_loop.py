@@ -1,7 +1,7 @@
 """Organic end-to-end loop closure: a long drifting circuit where detection
 fires through the real `LoopCloser.detect()` policy (BoW retrieval +
 covisibility consistency), correction runs, and the SAVED corrected
-trajectory beats the loop-disabled run (VERDICT round-1 items 5 + 8).
+trajectory beats the loop-disabled run.
 
 Nothing is forced: no hand-picked keyframe pair, no injected Sim3.
 """

@@ -74,7 +74,7 @@ class TestTrackerDerivedGBA:
     def test_live_map_sharded_matches_single(self):
         """Global BA of a LIVE tracker's map — dead KF slots, culled points,
         real mono+stereo observation rows — sharded over the mesh must match
-        the single-device solve (VERDICT round-2 item 7). This is the
+        the single-device solve. This is the
         distributed form of the loop closer's GBA
         (`/root/reference/src/LoopClosing.cc:349-499`)."""
         from orb_slam2_refactored_tpu.io.synthetic import (

@@ -15,16 +15,11 @@ invariants that make that safe:
 import numpy as np
 import pytest
 
+from orb_slam2_refactored_tpu.native import NativeMapGraph
 from orb_slam2_refactored_tpu.slam.map_state import MapCapacity, MapGraph
 
-BACKENDS = [MapGraph]
-try:
-    from orb_slam2_refactored_tpu.native import NativeMapGraph, native_available
-
-    if native_available():
-        BACKENDS.append(NativeMapGraph)
-except Exception:
-    pass
+# the same two backends in every worker: the native one builds at first use
+BACKENDS = [MapGraph, NativeMapGraph]
 
 
 @pytest.mark.parametrize("cls", BACKENDS, ids=lambda c: c.__name__)

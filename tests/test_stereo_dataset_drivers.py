@@ -1,6 +1,6 @@
 """End-to-end stereo dataset paths: KITTI-layout and EuRoC-layout exports
 -> the REAL `stereo_kitti` / `stereo_euroc` CLI drivers -> trajectory files
--> evaluator. No hand-wiring (VERDICT r3 missing #2).
+-> evaluator. No hand-wiring.
 
 In-container stand-ins for running the reference's
 `Examples/Stereo/stereo_kitti` on KITTI 00 and `stereo_euroc` on MH01

@@ -42,7 +42,7 @@ class TestVocabIO:
         assert voc.n_words == 2
 
     def test_tree_export_k10(self, tmp_path):
-        """save_dbow2_tree writes a REAL k-ary hierarchy (VERDICT r3 #4):
+        """save_dbow2_tree writes a REAL k-ary hierarchy:
         k=10 header, depth > 1, parents precede children, every leaf is an
         original word with its idf weight, and our own loader recovers the
         exact word set."""

@@ -1,4 +1,4 @@
-"""Large-vocabulary END-TO-END loop closure (VERDICT round-2 item 4).
+"""Large-vocabulary END-TO-END loop closure.
 
 The reference engine always runs with the ~1M-word ORBvoc.txt
 (`/root/reference/src/System.cc:343`); the live tracker here had only ever run
@@ -135,7 +135,7 @@ class TestLargeVocabE2E:
 
 
 class TestOrbvocScaleDatabase:
-    """ORBvoc-scale place recognition (VERDICT r3 #4): the reference ships a
+    """ORBvoc-scale place recognition: the reference ships a
     ~1M-word vocabulary (`/root/reference/build.sh:22-24` untars ORBvoc.txt);
     the database must quantize, index, refit idf, and retrieve at that scale
     without a dense [KF, W] matrix (2 GB at KF_cap=512)."""

@@ -1,6 +1,6 @@
 """Vocabulary hygiene at scale: multi-view training, idf refit, chunked
 quantization for huge vocabularies, grouped loop-candidate scoring, and
-place-recognition recall at >=2048 words (VERDICT round-1 item 10).
+place-recognition recall at >=2048 words.
 """
 
 import os
@@ -117,7 +117,7 @@ class TestRecallAtScale:
     def test_place_recall_2048_words(self):
         """Render 12 distinct-texture views, train a 2048-word vocabulary on
         4 of them, index all, and require >=80% top-1 recall for noisy
-        revisits (VERDICT item 10 done criterion)."""
+        revisits."""
         from orb_slam2_refactored_tpu.io.synthetic import (
             SyntheticScene, box_room, orbit_trajectory,
         )

@@ -154,7 +154,7 @@ def _one_wall_problem(seed=7):
 class TestPlanarPnP:
     def test_one_wall_pnp_succeeds(self):
         """pnp_ransac recovers the pose from a purely coplanar landmark set
-        (VERDICT r4 'done' criterion for the planar-safe mono solver)."""
+       ."""
         cam, pts, uv, pose = _one_wall_problem()
         res = pnp_ransac(jnp.asarray(pts), jnp.asarray(uv),
                          jnp.ones(len(pts), bool), cam, jax.random.PRNGKey(3))
@@ -209,7 +209,7 @@ class _StubGraph:
 
 
 class TestDetectionPolicyBoundaries:
-    """Boundary semantics of the retrieval policy (VERDICT r4 weak #7):
+    """Boundary semantics of the retrieval policy:
     the min-score floor, the 0.8 shared-word gate and the 0.75 group
     retention are all >=-inclusive gates; the floor deviation
     (`max(min_covis * 0.8, 0.02)`, documented in loop_closing.py) is
